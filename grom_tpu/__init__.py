@@ -1,10 +1,10 @@
-"""grom_tpu — a TPU-native integrated germline variant caller.
+"""grom_tpu — an integrated germline variant caller on JAX/XLA.
 
 Reimplements the capabilities of GROM (radygenomics/GROM: SNVs, small indels,
 structural variants, CNVs and translocations from coordinate-sorted paired-end
 BAMs) as an idiomatic JAX/XLA engine: host-side BAM→tensor ingest, vectorized
-pileup/evidence kernels over HBM-resident genome tiles, and mesh-sharded
-multi-chip execution.
+pileup/evidence kernels over device-resident genome tiles, and mesh-sharded
+multi-device execution.
 """
 
 def _tune_malloc() -> None:
@@ -13,7 +13,7 @@ def _tune_malloc() -> None:
     mmap threshold each one is a fresh anonymous mapping whose pages fault
     on first touch (and on some hosts that costs seconds per call). Raising
     M_MMAP_THRESHOLD/M_TRIM_THRESHOLD makes the heap retain and reuse those
-    pages. Measured ~2x end-to-end on the 200kb fixture. No-op off glibc."""
+    pages. No-op off glibc."""
     import ctypes
     import sys
     if not sys.platform.startswith("linux"):
@@ -92,12 +92,10 @@ class _Preheat:
             return None
         env = os.environ.get("GROM_TPU_PREHEAT", "")
         if env in ("", "0"):
-            # OFF by default since the cross-process shm warm pool landed:
-            # with warm slabs one mmap away, the preheat thread's probe +
-            # populate only COMPETE with the pipeline's own allocations
-            # for the host's page-supply rate (measured +4.6s end-to-end
-            # on a supply-constrained host). Opt in with =1/=<bytes> for
-            # cold single-shot runs on idle wide hosts.
+            # OFF by default: the preheat thread's probe + populate
+            # COMPETE with the pipeline's own allocations for the host's
+            # page-supply rate. Opt in with =1/=<bytes> for cold
+            # single-shot runs on idle wide hosts.
             return None
         try:
             libc = ctypes.CDLL(None, use_errno=True)
@@ -215,12 +213,11 @@ _start_background_warmup()
 
 def _install_hugealloc() -> None:
     """Route large numpy allocations through the huge-page slab allocator
-    (native/grom_hugealloc.c). On sandboxed kernels (gVisor-class TPU dev
-    hosts) a first-touch page fault costs ~14 s/GiB; 2 MiB-aligned
-    MADV_HUGEPAGE mmaps cut that ~3x and the allocator's warm-slab reuse
-    cuts it ~100x, which is the difference between memory allocation and
-    compute dominating the pipeline. Disable with GROM_TPU_HUGEALLOC=0.
-    The extension is built on demand (make -C native hugealloc)."""
+    (native/grom_hugealloc.c). On kernels where a first-touch page fault is
+    expensive, 2 MiB-aligned MADV_HUGEPAGE mmaps and the allocator's
+    warm-slab reuse keep memory allocation from dominating the pipeline.
+    Disable with GROM_TPU_HUGEALLOC=0. The extension is built on demand
+    (make -C native hugealloc)."""
     import os
     import sys
     if not sys.platform.startswith("linux"):
@@ -262,19 +259,7 @@ def _install_hugealloc() -> None:
         cap_env = os.environ.get("GROM_TPU_POOL_CAP", "")
         if cap_env.isdigit():
             cap = int(cap_env)
-        # cross-process warm pool: slabs carve a /dev/shm file whose pages
-        # survive process exit — repeat runs re-map warm memory (~0.04
-        # s/GiB) instead of re-acquiring from the host (~1-10 s/GiB on
-        # sandboxed kernels). Exclusive-locked; concurrent pipelines fall
-        # back to anonymous slabs. GROM_TPU_SHM_POOL=0 disables, =N caps.
-        shm_env = os.environ.get("GROM_TPU_SHM_POOL", "")
-        if shm_env == "0":
-            shm_cap = 0
-        elif shm_env.isdigit():
-            shm_cap = int(shm_env)
-        else:
-            shm_cap = 4 << 30
-        _hugealloc.install(pool_cap=cap, shm_cap=shm_cap)
+        _hugealloc.install(pool_cap=cap)
         if _PREHEAT.installed is not None:
             _PREHEAT.installed.set()
             _PREHEAT._drain()

@@ -10,7 +10,7 @@ The main pipeline's BGZF reader (ingest/bgzf.BgzfRandomReader) consults
 :data:`RESULT` and, on a hit, serves decompressed spans as zero-copy views
 of the early buffer instead of re-reading and re-inflating.
 
-This is the TPU-host re-expression of the reference's decode/compute
+This is the re-expression of the reference's decode/compute
 overlap (its reader thread starts with the process, src/GROM.c:82-324);
 ours starts even earlier — before the interpreter has finished loading the
 compute stack.

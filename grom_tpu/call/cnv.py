@@ -613,144 +613,20 @@ def _sample_distributions(chrom: np.ndarray, feats: RefFeatures,
     return (hi_arr, lo_arr), ave, std, nwin, del_thr, dup_thr
 
 
-def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
-                   rd_hi: np.ndarray, rd_lo: np.ndarray, cfg: GromConfig,
-                   drv: DerivedConfig, ploidy: int,
-                   rng: Optional[np.random.Generator] = None,
-                   gen1000_out: Optional[List[str]] = None,
-                   depth: Optional[np.ndarray] = None,
-                   engine: str = "host"
-                   ) -> Tuple[List[CnvCall], List[CnvCall]]:
-    L = len(chrom)
-    m = drv.insert_mean
-    W = 2 * m - 1
-    if depth is None:
-        depth = (rd_hi.astype(np.int32) + rd_lo.astype(np.int32))
-    mq = prep.mq_mean
-    gc = feats.gc_weighted
-    acgt = feats.acgt_weighted
-    NB = cfg.num_gc_bins
-    cap = cfg.sample_lists_len
-    rng = rng or np.random.default_rng(0)
-
-    from grom_tpu.utils.timing import phase as _ph0
-    with _ph0("cnv.sample"):
-        (hi_arr, lo_arr), ave, std, nwin, del_thr, dup_thr = \
-            _sample_distributions(chrom, feats, prep, rd_hi, rd_lo, cfg, drv,
-                                  ploidy, rng=rng, depth=depth)
+def _zscores_numpy(stdev_list: np.ndarray, blocks, depth, mq, gc, low_acgt,
+                   nwin, hi_arr, lo_arr, ave, std, pv_p, pv_sd,
+                   cfg: GromConfig) -> None:
+    """The numpy z stage of detect_del_dup: per-base weighted z-scores over
+    each [bs, be) of ``blocks``, written into ``stdev_list`` (the
+    differential oracle of the native and device z kernels)."""
     hi_n = [len(a) for a in hi_arr]
     lo_n = [len(a) for a in lo_arr]
-
-    # ---- low_acgt_or_windows mask (src/GROM.c:18683-18750) ----
-    # chunked: the int64 temporaries here would otherwise cost ~30B/base
-    # at once (8GB transient on a 250Mb chromosome); the sticky class
-    # carries across chunks via its last value
-    low_acgt = np.ones(L, dtype=np.int8)
-    scan_lo, scan_hi = m - 1, L - W
-    carry_cls = 0
-    CHK = 16 << 20
-    for c0 in range(scan_lo, max(scan_hi, scan_lo), CHK):
-        c1 = min(c0 + CHK, scan_hi)
-        if c1 <= c0:
-            break
-        sl_r = slice(c0, c1)
-        ok_acgt = acgt[sl_r] >= 99
-        # sticky class: the reference updates last_low ONLY at positions
-        # passing the acgt gate (src/GROM.c:18691-18706) — positions below
-        # the gate neither read nor advance the class state
-        def_cls = np.where(mq[sl_r] >= cfg.min_mapq, 0,
-                           np.where(depth[sl_r] > 0, 1, -1))
-        def_cls = np.where(ok_acgt, def_cls, -1).astype(np.int8)
-        cls_ff = _sticky_ffill(def_cls, carry_cls)
-        carry_cls = int(cls_ff[-1]) if len(cls_ff) else carry_cls
-        nwin_at = nwin[cls_ff, gc[sl_r]]
-        low_acgt[sl_r] = np.where(ok_acgt & (nwin_at >= 100), 0, 1)
-
-    # ---- per-base z-scores (src/GROM.c:18770-18965) ----
-    # NOTE: the z loop runs over g_lowvar_block_* which main RESET to the
-    # whole chromosome before calling detect_del_dup (src/GROM.c:17123-17125);
-    # only the SAMPLING above uses the masked blocks.
-    full_blocks = [(m - 1, L - W)]
-    pv_p, pv_sd = build_pval2sd()
     pv_len = len(pv_p)
-    stdev_list = np.zeros(L)
     mf = cfg.mapq_factor
-
-    # native fast path (native/grom_cnv.c): bit-identical C ports of the
-    # z-score, null-model and window-scan stages below; the numpy code
-    # remains the differential oracle (tests/test_native_cnv.py)
-    import os as _os
-    _dc = _os.environ.get("GROM_TPU_DEVICE_CNV", "")
-    if _dc == "1" or (_dc != "0" and engine in ("tpu", "mesh")):
-        # device (jax) z-scores + window scans (ops/cnv_device.py) — the
-        # SURVEY §7.4 prefix-sum-pyramid formulation; bit-identical to the
-        # host path under jax x64 (tests/test_cnv_device.py). The null
-        # model + rescore + copy number stay host-side.
-        from grom_tpu.ops import cnv_device
-        from grom_tpu.utils.timing import phase as _phd
-        lo_z, hi_z = full_blocks[0]
-        if hi_z > lo_z:
-            with _phd("cnv.zscores_dev"):
-                mat, lens = cnv_device.build_bin_matrix(hi_arr, lo_arr, NB)
-                stdev_list = cnv_device.zscores_device(
-                    depth, mq, gc, low_acgt, mat, lens, ave, std, pv_p,
-                    pv_sd, NB, lo_z, hi_z, cfg.min_mapq, cfg.mapq_factor,
-                    cfg.dup_threshold_factor, cfg.ranks_stdev != 0)
-        with _phd("cnv.nullmodel_dev"):
-            gate_nm = (low_acgt == 0) & np.where(
-                mq >= cfg.min_mapq, nwin[0, gc] > 1, nwin[1, gc] > 1)
-            win_std = cnv_device.null_model_device(
-                prep.lowvar_blocks, stdev_list, gate_nm,
-                cfg.min_rd_window_len, cfg.max_rd_window_len,
-                cfg.sampling_rate)
-        if prep.most_biased_repeat != -1:
-            _repeat_rescore(feats, prep, depth, low_acgt, acgt, stdev_list,
-                            pv_p, pv_sd, cfg, m, rng)
-        scan_blocks = [(m - 1, L - W)]
-        dels = cnv_device.window_scan_device(
-            scan_blocks, depth, mq, gc, nwin, low_acgt, stdev_list,
-            del_thr, win_std, cfg, L, +1)
-        dups = cnv_device.window_scan_device(
-            scan_blocks, depth, mq, gc, nwin, low_acgt, stdev_list,
-            dup_thr, win_std, cfg, L, -1)
-        _copy_number(dels, dups, depth, mq, gc, low_acgt, ave, ploidy, cfg)
-        if gen1000_out is not None and cfg.gen1000_window > 0:
-            gen1000_out.extend(_gen1000_track(depth, mq, gc, low_acgt, ave,
-                                              ploidy, cfg, L))
-        return dels, dups
-
-    nat = _native_cnv_ctx(hi_arr, lo_arr, depth, mq, gc, low_acgt, ave, std,
-                          pv_p, pv_sd, NB, cfg)
-    if nat is not None:
-        from grom_tpu.utils.timing import phase as _ph
-        lo_z, hi_z = full_blocks[0]
-        if hi_z > lo_z:
-            with _ph("cnv.zscores"):
-                nat.zscores(lo_z, hi_z, stdev_list)
-        # null-model windows are collected from the PRE-rescore z: the
-        # reference samples them inside its z loop (src/GROM.c:18975-19015)
-        # and the repeat rescore (:19018-19180) runs after
-        with _ph("cnv.nullmodel"):
-            win_std = nat.null_model(prep.lowvar_blocks, stdev_list)
-        if prep.most_biased_repeat != -1:
-            with _ph("cnv.rescore"):
-                _repeat_rescore(feats, prep, depth, low_acgt, acgt,
-                                stdev_list, pv_p, pv_sd, cfg, m, rng)
-        scan_blocks = [(m - 1, L - W)]
-        with _ph("cnv.winscan"):
-            dels = nat.scan(scan_blocks, stdev_list, del_thr, win_std, L, +1)
-            dups = nat.scan(scan_blocks, stdev_list, dup_thr, win_std, L, -1)
-        with _ph("cnv.copynum"):
-            _copy_number(dels, dups, depth, mq, gc, low_acgt, ave, ploidy,
-                         cfg)
-        if gen1000_out is not None and cfg.gen1000_window > 0:
-            gen1000_out.extend(_gen1000_track(depth, mq, gc, low_acgt, ave,
-                                              ploidy, cfg, L))
-        return dels, dups
     # The reference walks every base keying a (class, gc, depth) z cache
     # (src/GROM.c:18770-18965); we resolve the sticky class vectorized,
     # then evaluate one z per unique key and scatter.
-    for (bs, be) in full_blocks:
+    for (bs, be) in blocks:
         if be <= bs:
             continue
         sl = slice(bs, be)
@@ -850,6 +726,141 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
                      mf + (1.0 - mf) * (mq[sl][vi] - cfg.min_mapq) / 40.0,
                      mf)
         stdev_list[bs + vi] = w * base[inv]
+
+
+def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
+                   rd_hi: np.ndarray, rd_lo: np.ndarray, cfg: GromConfig,
+                   drv: DerivedConfig, ploidy: int,
+                   rng: Optional[np.random.Generator] = None,
+                   gen1000_out: Optional[List[str]] = None,
+                   depth: Optional[np.ndarray] = None,
+                   engine: str = "host"
+                   ) -> Tuple[List[CnvCall], List[CnvCall]]:
+    L = len(chrom)
+    m = drv.insert_mean
+    W = 2 * m - 1
+    if depth is None:
+        depth = (rd_hi.astype(np.int32) + rd_lo.astype(np.int32))
+    mq = prep.mq_mean
+    gc = feats.gc_weighted
+    acgt = feats.acgt_weighted
+    NB = cfg.num_gc_bins
+    cap = cfg.sample_lists_len
+    rng = rng or np.random.default_rng(0)
+
+    from grom_tpu.utils.timing import phase as _ph0
+    with _ph0("cnv.sample"):
+        (hi_arr, lo_arr), ave, std, nwin, del_thr, dup_thr = \
+            _sample_distributions(chrom, feats, prep, rd_hi, rd_lo, cfg, drv,
+                                  ploidy, rng=rng, depth=depth)
+
+    # ---- low_acgt_or_windows mask (src/GROM.c:18683-18750) ----
+    # chunked: the int64 temporaries here would otherwise cost ~30B/base
+    # at once (8GB transient on a 250Mb chromosome); the sticky class
+    # carries across chunks via its last value
+    low_acgt = np.ones(L, dtype=np.int8)
+    scan_lo, scan_hi = m - 1, L - W
+    carry_cls = 0
+    CHK = 16 << 20
+    for c0 in range(scan_lo, max(scan_hi, scan_lo), CHK):
+        c1 = min(c0 + CHK, scan_hi)
+        if c1 <= c0:
+            break
+        sl_r = slice(c0, c1)
+        ok_acgt = acgt[sl_r] >= 99
+        # sticky class: the reference updates last_low ONLY at positions
+        # passing the acgt gate (src/GROM.c:18691-18706) — positions below
+        # the gate neither read nor advance the class state
+        def_cls = np.where(mq[sl_r] >= cfg.min_mapq, 0,
+                           np.where(depth[sl_r] > 0, 1, -1))
+        def_cls = np.where(ok_acgt, def_cls, -1).astype(np.int8)
+        cls_ff = _sticky_ffill(def_cls, carry_cls)
+        carry_cls = int(cls_ff[-1]) if len(cls_ff) else carry_cls
+        nwin_at = nwin[cls_ff, gc[sl_r]]
+        low_acgt[sl_r] = np.where(ok_acgt & (nwin_at >= 100), 0, 1)
+
+    # ---- per-base z-scores (src/GROM.c:18770-18965) ----
+    # NOTE: the z loop runs over g_lowvar_block_* which main RESET to the
+    # whole chromosome before calling detect_del_dup (src/GROM.c:17123-17125);
+    # only the SAMPLING above uses the masked blocks.
+    full_blocks = [(m - 1, L - W)]
+    pv_p, pv_sd = build_pval2sd()
+    stdev_list = np.zeros(L)
+
+    # native fast path (native/grom_cnv.c): bit-identical C ports of the
+    # z-score, null-model and window-scan stages below; the numpy code
+    # remains the differential oracle (tests/test_native_cnv.py)
+    import os as _os
+    _dc = _os.environ.get("GROM_TPU_DEVICE_CNV", "")
+    if _dc == "1" or (_dc != "0" and engine in ("device", "mesh")):
+        # device (jax) z-scores + window scans (ops/cnv_device.py) — the
+        # SURVEY §7.4 prefix-sum-pyramid formulation, in float64 inside the
+        # x64 scope (tests/test_cnv_device.py). The repeat rescore and
+        # copy number stay host-side.
+        from grom_tpu.ops import cnv_device
+        from grom_tpu.utils.timing import phase as _phd
+        lo_z, hi_z = full_blocks[0]
+        if hi_z > lo_z:
+            with _phd("cnv.zscores_dev"):
+                mat, lens = cnv_device.build_bin_matrix(hi_arr, lo_arr, NB)
+                stdev_list = cnv_device.zscores_device(
+                    depth, mq, gc, low_acgt, mat, lens, ave, std, pv_p,
+                    pv_sd, NB, lo_z, hi_z, cfg.min_mapq, cfg.mapq_factor,
+                    cfg.dup_threshold_factor, cfg.ranks_stdev != 0)
+        with _phd("cnv.nullmodel_dev"):
+            gate_nm = (low_acgt == 0) & np.where(
+                mq >= cfg.min_mapq, nwin[0, gc] > 1, nwin[1, gc] > 1)
+            win_std = cnv_device.null_model_device(
+                prep.lowvar_blocks, stdev_list, gate_nm,
+                cfg.min_rd_window_len, cfg.max_rd_window_len,
+                cfg.sampling_rate)
+        if prep.most_biased_repeat != -1:
+            _repeat_rescore(feats, prep, depth, low_acgt, acgt, stdev_list,
+                            pv_p, pv_sd, cfg, m, rng)
+        scan_blocks = [(m - 1, L - W)]
+        with _phd("cnv.winscan_dev"):
+            dels = cnv_device.window_scan_device(
+                scan_blocks, depth, mq, gc, nwin, low_acgt, stdev_list,
+                del_thr, win_std, cfg, L, +1)
+            dups = cnv_device.window_scan_device(
+                scan_blocks, depth, mq, gc, nwin, low_acgt, stdev_list,
+                dup_thr, win_std, cfg, L, -1)
+        _copy_number(dels, dups, depth, mq, gc, low_acgt, ave, ploidy, cfg)
+        if gen1000_out is not None and cfg.gen1000_window > 0:
+            gen1000_out.extend(_gen1000_track(depth, mq, gc, low_acgt, ave,
+                                              ploidy, cfg, L))
+        return dels, dups
+
+    nat = _native_cnv_ctx(hi_arr, lo_arr, depth, mq, gc, low_acgt, ave, std,
+                          pv_p, pv_sd, NB, cfg)
+    if nat is not None:
+        from grom_tpu.utils.timing import phase as _ph
+        lo_z, hi_z = full_blocks[0]
+        if hi_z > lo_z:
+            with _ph("cnv.zscores"):
+                nat.zscores(lo_z, hi_z, stdev_list)
+        # null-model windows are collected from the PRE-rescore z: the
+        # reference samples them inside its z loop (src/GROM.c:18975-19015)
+        # and the repeat rescore (:19018-19180) runs after
+        with _ph("cnv.nullmodel"):
+            win_std = nat.null_model(prep.lowvar_blocks, stdev_list)
+        if prep.most_biased_repeat != -1:
+            with _ph("cnv.rescore"):
+                _repeat_rescore(feats, prep, depth, low_acgt, acgt,
+                                stdev_list, pv_p, pv_sd, cfg, m, rng)
+        scan_blocks = [(m - 1, L - W)]
+        with _ph("cnv.winscan"):
+            dels = nat.scan(scan_blocks, stdev_list, del_thr, win_std, L, +1)
+            dups = nat.scan(scan_blocks, stdev_list, dup_thr, win_std, L, -1)
+        with _ph("cnv.copynum"):
+            _copy_number(dels, dups, depth, mq, gc, low_acgt, ave, ploidy,
+                         cfg)
+        if gen1000_out is not None and cfg.gen1000_window > 0:
+            gen1000_out.extend(_gen1000_track(depth, mq, gc, low_acgt, ave,
+                                              ploidy, cfg, L))
+        return dels, dups
+    _zscores_numpy(stdev_list, full_blocks, depth, mq, gc, low_acgt, nwin,
+                   hi_arr, lo_arr, ave, std, pv_p, pv_sd, cfg)
 
     # ---- null window model (src/GROM.c:18975-19015, 19180-19215) ----
     # BEFORE the repeat rescore: the reference samples its null windows

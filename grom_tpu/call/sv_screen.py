@@ -14,9 +14,8 @@ the reference's scalar loop would have reached them, so the result is
 byte-identical.
 
 The scoring core is ``xp``-generic (numpy or jax.numpy): the host engine
-calls it with numpy; the device engines can run the same gathers under jit
-(bit-identical under jax x64; on a real TPU the f64 tables ride in f32 with
-the same documented tolerance as the device CNV kernels, ops/cnv_device.py).
+calls it with numpy; the device engines run the same gathers under jit in
+float64 inside JAX's x64 scope (ops/sv_device.py), bit-identical to numpy.
 """
 
 from __future__ import annotations
@@ -81,13 +80,19 @@ class Actions:
 
 def _f32_ratio_gate(xp, weak, strong):
     """The reference's float32 evidence-ratio gate (src/GROM.c:11996 et al):
-    (float)weak / (float)strong <= 0.25 — NaN (0/0) and inf compare False."""
-    if xp is np:
-        with np.errstate(divide="ignore", invalid="ignore"):
-            r = weak.astype(np.float32) / strong.astype(np.float32)
-    else:
-        r = weak.astype(xp.float32) / strong.astype(xp.float32)
-    return r <= np.float32(0.25)
+    (float)weak / (float)strong <= 0.25 — NaN (0/0) and inf compare False.
+
+    Evaluated exactly in int64 so every backend agrees bit for bit (a GPU's
+    float32 division need not round the IEEE way): with W, S the counts
+    rounded to float32, round-to-nearest-even gives W / S <= 0.25 exactly
+    when W * 2^26 <= S * (2^24 + 1) — the midpoint between 0.25 and the
+    next float32 ties to 0.25 — and S > 0. Needs 64-bit integers: jnp
+    callers run inside ``jax.enable_x64``."""
+    w = weak.astype(xp.float32).astype(xp.int64)
+    s = strong.astype(xp.float32).astype(xp.int64)
+    if w.dtype.itemsize < 8:
+        raise TypeError("_f32_ratio_gate needs int64 (jax.enable_x64)")
+    return (s > 0) & (w * (1 << 26) <= s * ((1 << 24) + 1))
 
 
 def binom_pair_vec(xp, rd, strong, weak, mq_tab, hez_tab, af: int, mt: int,

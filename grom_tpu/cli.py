@@ -19,7 +19,7 @@ from grom_tpu.config import FLAG_MAP, TOGGLE_MAP, GromConfig
 # :22101-22102)
 _GETOPT = "i:r:o:g:p:b:q:Q:v:e:V:d:j:u:w:y:z:a:n:x:k:m:s:A:D:E:K:L:U:W:X:Y:Z:N:B:G:l:F:R:P:c:MSfh"
 
-HELP = """GROM-TPU — TPU-native integrated variant caller (SNV/indel/SV/CNV)
+HELP = """GROM-TPU — integrated germline variant caller (SNV/indel/SV/CNV)
 
 Usage: grom-tpu -i <bam> -r <fasta> -o <out.vcf> [options]
 
@@ -115,11 +115,17 @@ def _run_one_chromosome(args):
     chromosome's records in memory; ctx candidate records (sparse) come back
     directly for the global merge. Returns ((refid, sub), part_path, n_rows,
     ctx_records)."""
+    global _CLAIMED
     cfg_json, refid, sub, rstart, rend, part_path = args
+    if _CLAIMED is not None:
+        with _CLAIMED.get_lock():
+            _CLAIMED.value += 1
+        _CLAIMED = None
     import numpy as np
 
     from grom_tpu.config import DerivedConfig, GromConfig
-    from grom_tpu.driver import call_chromosome, call_chromosome_streamed
+    from grom_tpu.driver import (call_chromosome, call_chromosome_streamed,
+                                 resolve_engine, start_engine)
     from grom_tpu.ingest import bam as bam_mod
     from grom_tpu.ingest import fasta as fasta_mod
     from grom_tpu.ingest.insert_size import load_or_estimate
@@ -144,6 +150,8 @@ def _run_one_chromosome(args):
                                     cfg.max_trials)
     hez_table = binom.build_hez_table(cfg.max_trials)
     chrom = fasta_mod.load_chromosome(cfg.ref_fasta, info, fa_name)
+    engine = resolve_engine()
+    start_engine(engine)
     res = None
     if rstart is None:
         # whole chromosome: bounded-memory chunked streaming, same engine
@@ -153,7 +161,8 @@ def _run_one_chromosome(args):
         def fetch(t0, t1):
             return bam_mod.read_bam_region(cfg.bam, refid, t0, t1)[1]
         res = call_chromosome_streamed(chrom, refid, out_name, cfg, drv,
-                                       mq_table, hez_table, fetch)
+                                       mq_table, hez_table, fetch,
+                                       engine=engine)
     if res is None:
         # sub-region job (-R split) or streamed-path rejection: regional
         # whole-batch fallback
@@ -168,7 +177,8 @@ def _run_one_chromosome(args):
             sel = np.flatnonzero((reads.pos < rend - 1) & (ends > rstart))
             region_start = rstart
         res = call_chromosome(chrom, reads, sel, refid, out_name, cfg, drv,
-                              mq_table, hez_table, region_start=region_start)
+                              mq_table, hez_table, region_start=region_start,
+                              engine=engine)
     rows, ctx = res
     with open(part_path, "w") as f:
         for r in rows:
@@ -176,16 +186,55 @@ def _run_one_chromosome(args):
     return key, part_path, len(rows), ctx
 
 
+def worker_env(slot: int, cards: List[str]) -> dict:
+    """Environment for -P worker ``slot``: one process per card. Slots below
+    the card count own one card each and resolve their engine as usual;
+    every other slot runs the host engine and sees no card (a JAX process
+    reserves most of a card's memory, so a second one on the same card
+    fails)."""
+    if slot < len(cards):
+        return {"CUDA_VISIBLE_DEVICES": cards[slot]}
+    return {"CUDA_VISIBLE_DEVICES": "", "GROM_TPU_ENGINE": "host"}
+
+
+# set in a card slot's worker until its first job counts itself in ``claimed``
+_CLAIMED = None
+
+
+def _init_worker(counter, claimed, cards: List[str]) -> None:
+    """Pool initializer: take a slot from the shared counter and set the
+    slot's environment before this worker first imports JAX. A host slot
+    takes no job until every card's worker holds one, so the cards get the
+    first (largest) chromosomes."""
+    global _CLAIMED
+    with counter.get_lock():
+        slot = counter.value
+        counter.value += 1
+    env = worker_env(slot, cards)
+    os.environ.update(env)
+    if "GROM_TPU_ENGINE" not in env:
+        _CLAIMED = claimed
+        print("worker slot %d: card %s" % (slot, env["CUDA_VISIBLE_DEVICES"]),
+              file=sys.stderr, flush=True)
+        return
+    print("worker slot %d: host engine, no card (%d card(s) visible)"
+          % (slot, len(cards)), file=sys.stderr, flush=True)
+    import time
+    while claimed.value < len(cards):
+        time.sleep(0.05)
+
+
 def run_parallel(cfg: GromConfig) -> None:
     """-P mode: chromosome-level parallelism via a process pool — the
-    TPU-native replacement of the reference's fork/execv scheduler
-    (src/GROM.c:354-624). Output order stays deterministic (BAM header
-    order), unlike the reference's completion-order concatenation."""
+    replacement of the reference's fork/execv scheduler (src/GROM.c:354-624),
+    with one worker process per card (worker_env). Output order stays
+    deterministic (BAM header order), unlike the reference's
+    completion-order concatenation."""
     import numpy as np
 
     from grom_tpu.call.ctx import write_ctx_vcf
     from grom_tpu.config import DerivedConfig
-    from grom_tpu.driver import _ctx_path
+    from grom_tpu.driver import _ctx_path, visible_cards
     from grom_tpu.ingest import bam as bam_mod
     from grom_tpu.ingest import fasta as fasta_mod
     from grom_tpu.ingest.insert_size import load_or_estimate
@@ -239,8 +288,13 @@ def run_parallel(cfg: GromConfig) -> None:
             pool_cap_set = True
         except (ValueError, OSError, AttributeError):
             pass
+    ctx = multiprocessing.get_context("spawn")
+    counter, claimed = ctx.Value("i", 0), ctx.Value("i", 0)
     try:
-        with multiprocessing.get_context("spawn").Pool(cfg.processes) as pool:
+        # the pool terminates on exit, also a host slot still waiting for
+        # the cards when there are fewer jobs than cards
+        with ctx.Pool(cfg.processes, initializer=_init_worker,
+                      initargs=(counter, claimed, visible_cards())) as pool:
             results = pool.map(_run_one_chromosome, jobs)
     finally:
         if pool_cap_set:

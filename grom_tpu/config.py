@@ -16,7 +16,6 @@ import dataclasses
 import json
 import math
 from dataclasses import dataclass
-from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -107,12 +106,6 @@ class GromConfig:
     num_gc_bins: int = 101                 # g_num_gc_bins
     sample_lists_len: int = 100_000        # g_sample_lists_len
     add_factor: int = 6                    # cdp_add_factor for mq>=min_mapq (src/GROM.c:2548)
-
-    # TPU execution parameters (no reference analogue)
-    tile_size: int = 1 << 20         # genome tile length resident per device step
-    reads_per_batch: int = 16384     # padded read-batch size
-    max_read_len: int = 512          # padded per-read base capacity
-    devices: Optional[int] = None    # cap device count (None = all)
 
     def replace(self, **kw) -> "GromConfig":
         return dataclasses.replace(self, **kw)

@@ -1,4 +1,4 @@
-"""Device (TPU) accumulate + SNV screen for the REAL calling pipeline.
+"""Device accumulate + SNV screen for the REAL calling pipeline.
 
 This is the jax/XLA re-expression of the per-base tally half of the
 reference's scan loop (src/GROM.c:6605-6984 + the SNV screen
@@ -6,7 +6,7 @@ reference's scan loop (src/GROM.c:6605-6984 + the SNV screen
 engines (native/grom_scan.c and call/scan.py — differential-tested in
 tests/test_device_accumulate.py):
 
-  * the chromosome is processed in fixed-size POSITION TILES (2^19 bases);
+  * the chromosome is processed in fixed-size POSITION TILES (2^18 bases);
     spans are split at tile edges on the host, so every tile compiles to the
     same executable (one compilation for the whole genome) and device memory
     stays bounded (~1.5 GB) regardless of chromosome length;
@@ -19,8 +19,8 @@ tests/test_device_accumulate.py):
     ranks < min_snv among short names at its position and the event is not
     the name's first occurrence.  Dedup state is position-local, so tiling
     is exact.  No hashing, no approximation;
-  * per-base scatter-adds with ``indices_are_sorted=True`` — one stable sort
-    by position puts every scatter on the fast TPU path;
+  * per-base scatter-adds with ``indices_are_sorted=True`` after one
+    stable sort by position;
   * the SNV candidate screen (alt mask, count and float32-ratio thresholds)
     runs on-device with a small downward ratio margin and returns a SPARSE
     SUPERSET candidate set; the host re-derives the exact reference float32
@@ -43,10 +43,6 @@ import functools
 from typing import Optional
 
 import numpy as np
-
-from grom_tpu.utils.jaxcache import enable_persistent_cache
-
-enable_persistent_cache()
 
 NT = 4
 
@@ -79,8 +75,7 @@ def tile_kernel_core(span_read, span_ref, span_readoff, cum0,
     L = gate.shape[0]
     E, M, K = e_cap, m_cap, k_cap
 
-    # ---- span expansion (scatter+cumsum segment ids — searchsorted is
-    # ~10x slower on TPU for this shape) --------------------------------
+    # ---- span expansion (segment ids by scatter + cumsum) ---------------
     e = jnp.arange(E, dtype=i32)
     marks = jnp.zeros(E, i32).at[jnp.minimum(cum0[1:], E - 1)].add(
         jnp.where(jnp.arange(cum0.shape[0] - 1) < n_span, 1, 0))
@@ -292,10 +287,23 @@ _EMPTY = {"n": 0, "pos": np.empty(0, np.int64),
           "read_count_all": np.empty(0, np.int64)}
 
 
+def read_names(reads):
+    """(name_id, name_len) for the exact read-name dedup. The device engines
+    need the native BAM decoder's interned names; a read-less batch gets
+    empty arrays."""
+    if reads.name_id is not None and reads.name_len is not None:
+        return reads.name_id, reads.name_len
+    if len(reads.pos) == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.uint8)
+    raise RuntimeError("the device engines need interned read names from "
+                       "the native BAM decoder (build native/ with make)")
+
+
 class DeviceAccumulator:
     """Host wrapper: splits one chromosome into fixed tiles, uploads each
     tile's span/read slices, runs the tile kernel, merges results. Returns
-    None (caller falls back to the host engines) when any bucket overflows."""
+    None (the caller runs the host engine) only when a bucket still
+    overflows at MIN_SUBTILE width."""
 
     def __init__(self):
         import jax
@@ -312,8 +320,7 @@ class DeviceAccumulator:
         arrays whose index 0 is ``gate_base``/``base_tot_base``."""
         import jax.numpy as jnp
         reads = batch.reads
-        if reads.name_id is None or reads.name_len is None:
-            return None
+        name_id, name_len = read_names(reads)
         L = len(chrom)
         hi = hi if hi > 0 else L
 
@@ -339,10 +346,10 @@ class DeviceAccumulator:
             return min(v, ceil)
 
         # ONE bucket-shape set per run, sized by the maxima over all tiles:
-        # per-tile shapes would trigger a compile per distinct combination
-        # (minutes each on remote-compile transports); chromosome-level caps
-        # give a single executable per chromosome profile, reused across
-        # chromosomes and runs via the persistent compile cache.
+        # per-tile shapes would trigger a compile per distinct combination;
+        # chromosome-level caps give a single executable per chromosome
+        # profile, reused across chromosomes and runs via the persistent
+        # compile cache.
         run_caps = {}
         tile_stats = []
         for w0 in range(lo, hi, TILE_L):
@@ -424,9 +431,9 @@ class DeviceAccumulator:
                 jnp.asarray(_pad_to(reads.seq[q0:q1].astype(np.uint8), q_cap)),
                 jnp.asarray(_pad_to(reads.qual[q0:q1].astype(np.uint8),
                                     q_cap)),
-                jnp.asarray(_pad_to(reads.name_id[r0:r1].astype(np.int32),
+                jnp.asarray(_pad_to(name_id[r0:r1].astype(np.int32),
                                     r_cap + 1, -1)),
-                jnp.asarray(_pad_to(reads.name_len[r0:r1].astype(np.uint8),
+                jnp.asarray(_pad_to(name_len[r0:r1].astype(np.uint8),
                                     r_cap + 1)),
                 jnp.asarray(_pad_to(np.append(up[t0:t1], np.uint8(0)),
                                     TILE_L + 1)),
@@ -497,11 +504,8 @@ class DeviceAccumulator:
 _ACC: Optional[DeviceAccumulator] = None
 
 
-def get_accumulator() -> Optional[DeviceAccumulator]:
+def get_accumulator() -> DeviceAccumulator:
     global _ACC
     if _ACC is None:
-        try:
-            _ACC = DeviceAccumulator()
-        except Exception:
-            return None
+        _ACC = DeviceAccumulator()
     return _ACC

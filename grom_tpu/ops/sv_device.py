@@ -3,14 +3,12 @@ the batched binomial-table gathers + gates of the per-position SV detectors
 (src/GROM.c:11750-13553) — under jit on the attached accelerator, padded to
 pow2 buckets so recompiles stay bounded.
 
-Exactness policy: the screen's probabilities are printed with %e in the VCF
-(PR fields), so the scorer is only enabled by default when jax x64 is active
-(e.g. a multi-host CPU mesh with JAX_ENABLE_X64 — bit-identical to the host
-numpy screen, tests/test_sv_device.py).  On f32-only accelerator paths the
-f64 tables would ride in f32 and perturb the last printed digits, so the
-host numpy screen (itself vectorized, sv_screen.py) stays the default;
-``GROM_TPU_DEVICE_SV=1`` forces the device scorer anyway with that
-documented tolerance, ``=0`` disables it everywhere.
+Exactness: the screen's probabilities are printed with %e in the VCF (PR
+fields), so the scorer runs in float64 inside JAX's x64 scope
+(``grom_tpu.ops.exact_f64``) and is bit-identical to the host numpy screen
+(tests/test_sv_device.py). It is the default on the device engines;
+``GROM_TPU_DEVICE_SV=1`` forces it on the host engine too, ``=0`` disables
+it everywhere.
 """
 
 from __future__ import annotations
@@ -19,6 +17,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from grom_tpu.ops import exact_f64
 
 
 def _pow2(n: int, floor: int = 1 << 10) -> int:
@@ -33,6 +33,7 @@ class DeviceSvScorer:
     signature and dtypes as the numpy default (a partial of
     score_sv_entries), but jitted on the default jax device."""
 
+    @exact_f64
     def __init__(self, mq_tab: np.ndarray, hez_tab: np.ndarray, af: int,
                  mt: int, md: int, thr1: float, mean: int, lseq: int):
         import functools
@@ -48,6 +49,7 @@ class DeviceSvScorer:
             score_sv_entries, jnp, mq_tab=mq_d, hez_tab=hez_d, af=af,
             mt=mt, md=md, thr1=thr1, mean=mean, lseq=lseq))
 
+    @exact_f64
     def __call__(self, pos, etype, count, rs, re, rd, weak_f, weak_r,
                  ctx_f_here):
         n = len(pos)
@@ -75,37 +77,23 @@ _CACHE: dict = {}
 
 def maybe_scorer(engine: Optional[str], mq_tab: np.ndarray,
                  hez_tab: np.ndarray, cfg, drv) -> Optional[DeviceSvScorer]:
-    """The engine-policy gate described in the module docstring.  Scorers
-    are memoized per parameter set (the tables are process-wide constants)
-    so per-chromosome calls reuse one jit cache."""
+    """The engine policy described in the module docstring. Scorers are
+    memoized per parameter set (the tables are process-wide constants) so
+    per-chromosome calls reuse one jit cache."""
     dc = os.environ.get("GROM_TPU_DEVICE_SV", "")
     if dc == "0":
         return None
-    if dc != "1" and engine not in ("tpu", "mesh"):
+    if dc != "1" and engine not in ("device", "mesh"):
         return None
-    try:
-        import jax
-        if dc != "1" and not jax.config.read("jax_enable_x64"):
-            return None
-        key = (cfg.add_factor, cfg.max_trials, cfg.min_disc,
-               cfg.pval_threshold1, drv.insert_mean, drv.read_len)
-        hit = _CACHE.get(key)
-        # held table references make the identity check safe against id reuse
-        if hit is not None and hit[0] is mq_tab and hit[1] is hez_tab:
-            return hit[2]
-        sc = DeviceSvScorer(mq_tab, hez_tab, cfg.add_factor,
-                            cfg.max_trials, cfg.min_disc,
-                            cfg.pval_threshold1, drv.insert_mean,
-                            drv.read_len)
-        _CACHE.clear()
-        _CACHE[key] = (mq_tab, hez_tab, sc)
-        return sc
-    except Exception as exc:
-        # degrading to the host screen is correct but must be diagnosable:
-        # a broken device config would otherwise look like a policy choice
-        if not _CACHE.get("_warned"):
-            _CACHE["_warned"] = True
-            import warnings
-            warnings.warn("grom_tpu: device SV scorer unavailable, using "
-                          "host screen (%s: %s)" % (type(exc).__name__, exc))
-        return None
+    key = (cfg.add_factor, cfg.max_trials, cfg.min_disc,
+           cfg.pval_threshold1, drv.insert_mean, drv.read_len)
+    hit = _CACHE.get(key)
+    # held table references make the identity check safe against id reuse
+    if hit is not None and hit[0] is mq_tab and hit[1] is hez_tab:
+        return hit[2]
+    sc = DeviceSvScorer(mq_tab, hez_tab, cfg.add_factor, cfg.max_trials,
+                        cfg.min_disc, cfg.pval_threshold1, drv.insert_mean,
+                        drv.read_len)
+    _CACHE.clear()
+    _CACHE[key] = (mq_tab, hez_tab, sc)
+    return sc

@@ -3,7 +3,7 @@
 The genome coordinate is the sequence axis. A chromosome is cut into
 fixed-width CELLS; each launch processes one cell per device over a 2-D
 ``(dp, sp)`` mesh — ``dp`` strides genome tiles, ``sp`` strides segments
-within a tile. This is the TPU-native re-expression of the reference's
+within a tile. This is the device-mesh re-expression of the reference's
 process parallelism: the fork/exec chromosome scheduler (src/GROM.c:354-624)
 becomes data-parallel genome cells, the 10 kb sub-region halo
 (src/GROM.c:75-78) becomes exact span splitting at cell edges plus a
@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from grom_tpu.ops.accumulate import (_EMPTY, SpanIndex, _pad_to,
-                                     tile_kernel_core)
+                                     read_names, tile_kernel_core)
 from grom_tpu.parallel.mesh import make_mesh
 
 HIST_BINS = 256
@@ -103,9 +103,11 @@ def build_mesh_step(mesh, seg_l: int, caps: Tuple[int, ...],
         flat = g.reshape(3, T * S)
         excl = jnp.cumsum(flat, axis=1) - flat                     # [3, T*S]
         excl = excl.reshape(3, T, S)
-        di = jax.lax.axis_index("dp") * t_l
-        si = jax.lax.axis_index("sp") * s_l
-        mine = jax.lax.dynamic_slice(excl, (0, di, si), (3, t_l, s_l))
+        # explicit int32 indices: under JAX_ENABLE_X64 a bare 0 is int64
+        # and dynamic_slice rejects mixed index dtypes
+        di = (jax.lax.axis_index("dp") * t_l).astype(i32)
+        si = (jax.lax.axis_index("sp") * s_l).astype(i32)
+        mine = jax.lax.dynamic_slice(excl, (i32(0), di, si), (3, t_l, s_l))
         base = mine + carry_in[:, None, None]   # + cross-launch carry
         rd_mq = base[0][..., None] + jnp.cumsum(dmq, axis=-1)
         rd_hi = base[1][..., None] + jnp.cumsum(dhi, axis=-1)
@@ -144,7 +146,7 @@ class MeshAccumulator:
     sharded over a jax device mesh, plus the caf_rd_* depth lists with an
     all_gather'd cross-cell carry. Drop-in alternative to the sequential
     DeviceAccumulator: returns (base_tot, cand, (rd_mq, rd_hi, rd_lo), hist),
-    or None when a bucket overflows (caller falls back)."""
+    or None when a bucket overflows (the caller runs the host engine)."""
 
     def __init__(self, mesh=None, seg_l: Optional[int] = None,
                  devices=None):
@@ -167,8 +169,8 @@ class MeshAccumulator:
     def _seg_l_for(self, L: int) -> int:
         if self.seg_l:
             return self.seg_l
-        # aim for ~2 launches of work but keep cells big enough to feed
-        # the MXU and small enough to bound per-device HBM
+        # aim for ~2 launches of work but keep cells big enough to
+        # amortize a launch and small enough to bound per-device memory
         target = max(1 << 14, L // (2 * self.n_cells_launch) + 1)
         return min(_pow2(target), 1 << 18)
 
@@ -189,8 +191,7 @@ class MeshAccumulator:
         chromosome of any length streams through bounded chunk memory."""
         import jax.numpy as jnp
         reads = batch.reads
-        if reads.name_id is None or reads.name_len is None:
-            return None
+        names = read_names(reads)
         L = len(chrom)
         hi = hi if hi > 0 else L
         span = hi - lo
@@ -278,7 +279,8 @@ class MeshAccumulator:
             lo_c = r * self.n_cells_launch
             batch_cells = cells[lo_c:lo_c + self.n_cells_launch]
             stacked = self._stack_cells(batch_cells, seg_l, caps, cfg,
-                                        reads, elig_u8, gate_u8, up, is_n,
+                                        reads, names, elig_u8, gate_u8, up,
+                                        is_n,
                                         seq_off64, d_pos, d_mq, d_hi, d_lo,
                                         gate_base)
             reshaped = [a.reshape((self.n_dp, self.n_sp) + a.shape[1:])
@@ -371,10 +373,11 @@ class MeshAccumulator:
             dev[k] = np.concatenate([p[k] for p in cand_parts])
         return dev
 
-    def _stack_cells(self, batch_cells, seg_l, caps, cfg, reads, elig_u8,
-                     gate_u8, up, is_n, seq_off64, d_pos, d_mq, d_hi, d_lo,
-                     gate_base=0):
+    def _stack_cells(self, batch_cells, seg_l, caps, cfg, reads, names,
+                     elig_u8, gate_u8, up, is_n, seq_off64, d_pos, d_mq, d_hi,
+                     d_lo, gate_base=0):
         S_B, E_B, M_B, K_B, R_B, Q_B, D_B = caps
+        name_id, name_len = names
         n = self.n_cells_launch
         arrs = {name: [] for name in range(24)}
 
@@ -417,8 +420,8 @@ class MeshAccumulator:
                 _pad_to((seq_off64[r0:r1] - q0).astype(np.int32), R_B + 1),
                 _pad_to(reads.seq[q0:q1].astype(np.uint8), Q_B),
                 _pad_to(reads.qual[q0:q1].astype(np.uint8), Q_B),
-                _pad_to(reads.name_id[r0:r1].astype(np.int32), R_B + 1, -1),
-                _pad_to(reads.name_len[r0:r1].astype(np.uint8), R_B + 1),
+                _pad_to(name_id[r0:r1].astype(np.int32), R_B + 1, -1),
+                _pad_to(name_len[r0:r1].astype(np.uint8), R_B + 1),
                 _pad_to(np.append(up[t0:t1], np.uint8(0)), seg_l + 1),
                 _pad_to(np.append(is_n[t0:t1], True), seg_l + 1, True),
                 _pad_to(gate_u8[t0 - gate_base:t1 - gate_base], seg_l),
@@ -440,13 +443,9 @@ class MeshAccumulator:
 _MESH_ACC: Optional[MeshAccumulator] = None
 
 
-def get_mesh_accumulator() -> Optional[MeshAccumulator]:
-    """Singleton mesh accumulator over all local devices (None when jax or
-    multiple devices are unavailable)."""
+def get_mesh_accumulator() -> MeshAccumulator:
+    """Singleton mesh accumulator over all local devices."""
     global _MESH_ACC
     if _MESH_ACC is None:
-        try:
-            _MESH_ACC = MeshAccumulator()
-        except Exception:
-            return None
+        _MESH_ACC = MeshAccumulator()
     return _MESH_ACC

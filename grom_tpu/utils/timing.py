@@ -1,4 +1,4 @@
-"""Phase timing instrumentation — the TPU-host equivalent of the reference's
+"""Phase timing instrumentation — the host-side equivalent of the reference's
 ``#ifdef DO_TIMING`` rdtsc spans (src/GROM.c:58-65, :1111-1121, and the
 timers[] blocks around each scan phase, e.g. :5849-6400, :16628-17001).
 
@@ -82,6 +82,17 @@ def phase(label: str) -> Iterator[None]:
             _totals[label] = (tot + dt, du + (u1 - u0), ds + (s1 - s0),
                               df + (f1 - f0), da + (a1 - a0), n + 1,
                               max(plm, lm))
+
+
+def add(label: str, seconds: float) -> None:
+    """Accumulate an externally timed event (e.g. one XLA compile, reported
+    by JAX's monitoring hook) under ``label``."""
+    if not _enabled:
+        return
+    with _lock:
+        tot, du, ds, df, da, n, plm = _totals.get(
+            label, (0.0, 0.0, 0.0, 0, 0, 0, 0))
+        _totals[label] = (tot + seconds, du, ds, df, da, n + 1, plm)
 
 
 def reset() -> None:

@@ -1,8 +1,8 @@
 /* grom_tpu._hugealloc — huge-page-backed numpy data allocator.
  *
- * Why this exists: on sandboxed kernels (gVisor-class, which includes the
- * TPU dev hosts this framework targets) a first-touch anonymous page fault
- * costs ~50us of sys time — ~14 s/GiB — which makes fresh numpy buffer
+ * Why this exists: on sandboxed kernels (gVisor-class) a first-touch
+ * anonymous page fault costs tens of microseconds of sys time, which
+ * makes fresh numpy buffer
  * allocation, not compute, the dominant cost of a vectorized genomics
  * pipeline (the per-chromosome arrays + decoded read tensors are GBs).
  * MADV_HUGEPAGE on a fresh anonymous mmap drops the cost ~20-35x (one fault
@@ -18,8 +18,8 @@
  *
  * The reference implementation has no analogue (its C design streams through
  * a fixed 10 MB ring, src/GROM.c:67-102, and never materializes large
- * buffers); this is the TPU-native framework's equivalent piece of runtime:
- * a host allocator tuned for the kernel it runs on.
+ * buffers); this is the framework's equivalent piece of runtime: a host
+ * allocator tuned for the kernel it runs on.
  *
  * Build: cc -O2 -shared -fPIC -I<python-inc> -I<numpy-inc> \
  *           grom_hugealloc.c -o grom_tpu/_hugealloc.so
@@ -32,14 +32,10 @@
 #define NPY_TARGET_VERSION NPY_1_22_API_VERSION
 #include <numpy/arrayobject.h>
 
-#include <fcntl.h>
 #include <pthread.h>
 #include <stdint.h>
-#include <stdio.h>
 #include <string.h>
-#include <sys/file.h>
 #include <sys/mman.h>
-#include <sys/stat.h>
 #include <unistd.h>
 
 #ifndef MADV_HUGEPAGE
@@ -66,15 +62,8 @@ static struct {
     size_t mlocked;
     /* counters (exposed via stats()) */
     size_t n_mmap, n_reuse, n_evict, live, live_max, mapped_max, acquired;
-    /* cross-process warm pool: slabs are carved from a tmpfs file whose
-     * pages survive process exit, so repeat runs re-map warm memory
-     * (~0.04s/GiB measured) instead of re-acquiring from the host
-     * (~1-10s/GiB). Exclusive flock; concurrent processes fall back to
-     * anonymous slabs. fd < 0 = anon mode. */
-    int shm_fd;
-    size_t shm_off, shm_size, shm_cap;
 } G = {PTHREAD_MUTEX_INITIALIZER, {{0}}, 0, 0, 6UL << 30, 1UL << 20,
-       0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0, 0};
+       0, 0, 0, 0, 0, 0, 0, 0, 0};
 
 static size_t round_slab(size_t sz) {
     /* Coarse size classes for large slabs: repeated allocations that grow
@@ -238,46 +227,14 @@ static void *slab_mmap(size_t rounded) {
     return base;
 }
 
-/* carve a slab from the shared warm-pool file (NULL = full/disabled);
- * pages may hold a previous run's data, so callers treat it as dirty */
-static void *shm_slab_mmap(size_t rounded) {
-    void *p = NULL;
-    pthread_mutex_lock(&G.lock);
-    if (G.shm_fd >= 0 && G.shm_off + rounded <= G.shm_cap) {
-        size_t off = G.shm_off;
-        if (off + rounded > G.shm_size) {
-            if (ftruncate(G.shm_fd, off + rounded) != 0) {
-                pthread_mutex_unlock(&G.lock);
-                return NULL;
-            }
-            G.shm_size = off + rounded;
-        }
-        p = mmap(NULL, rounded, PROT_READ | PROT_WRITE,
-                 MAP_SHARED | MAP_POPULATE, G.shm_fd, (off_t)off);
-        if (p == MAP_FAILED)
-            p = NULL;
-        else
-            G.shm_off = off + rounded;
-    }
-    pthread_mutex_unlock(&G.lock);
-    if (p) {
-        __sync_fetch_and_add(&G.n_mmap, 1);
-        __sync_fetch_and_add(&G.acquired, rounded);
-    }
-    return p;
-}
-
 static void *slab_alloc(size_t rounded, int want_zero) {
     int clean = 0;
     void *p = pool_get(rounded, &clean);
     if (p == NULL) {
-        p = shm_slab_mmap(rounded);   /* dirty: may hold a prior run's data */
-        if (p == NULL) {
-            p = slab_mmap(rounded);
-            if (p == NULL)
-                return NULL;
-            clean = 1;
-        }
+        p = slab_mmap(rounded);
+        if (p == NULL)
+            return NULL;
+        clean = 1;
     }
     if (want_zero && !clean)
         memset(p, 0, rounded);          /* warm pages: ~0.1 s/GiB */
@@ -356,37 +313,13 @@ static PyDataMem_Handler ga_handler = {
 
 static PyObject *prev_handler = NULL;
 
-static void shm_pool_open(size_t cap) {
-    /* cross-process warm pool file on tmpfs; exclusive flock so two
-     * concurrent pipelines never share live slabs (the loser runs anon) */
-    char path[128];
-    snprintf(path, sizeof(path), "/dev/shm/grom_tpu_pool_%ld",
-             (long)getuid());
-    int fd = open(path, O_CREAT | O_RDWR, 0600);
-    if (fd < 0)
-        return;
-    if (flock(fd, LOCK_EX | LOCK_NB) != 0) {
-        close(fd);
-        return;
-    }
-    struct stat st;
-    G.shm_size = (fstat(fd, &st) == 0) ? (size_t)st.st_size : 0;
-    G.shm_fd = fd;
-    G.shm_off = 0;
-    G.shm_cap = cap;
-}
-
 static PyObject *py_install(PyObject *self, PyObject *args, PyObject *kw) {
-    static char *kwlist[] = {"threshold", "pool_cap", "mlock_cap",
-                             "shm_cap", NULL};
+    static char *kwlist[] = {"threshold", "pool_cap", "mlock_cap", NULL};
     Py_ssize_t threshold = -1, pool_cap = -1, mlock_cap = -1;
-    Py_ssize_t shm_cap = -1;
     (void)self;
-    if (!PyArg_ParseTupleAndKeywords(args, kw, "|nnnn", kwlist, &threshold,
-                                     &pool_cap, &mlock_cap, &shm_cap))
+    if (!PyArg_ParseTupleAndKeywords(args, kw, "|nnn", kwlist, &threshold,
+                                     &pool_cap, &mlock_cap))
         return NULL;
-    if (shm_cap > 0 && G.shm_fd < 0)
-        shm_pool_open((size_t)shm_cap);
     if (threshold > 0)
         G.threshold = (size_t)threshold;
     if (pool_cap > 0)
@@ -426,9 +359,7 @@ static PyObject *py_uninstall(PyObject *self, PyObject *args) {
 
 static PyObject *py_stats(PyObject *self, PyObject *args) {
     (void)self; (void)args;
-    return Py_BuildValue("{s:n,s:n,s:n,s:n,s:n,s:n,s:n,s:n,s:n,s:n,s:n}",
-                         "shm", (Py_ssize_t)(G.shm_fd >= 0 ? 1 : 0),
-                         "shm_off", (Py_ssize_t)G.shm_off,
+    return Py_BuildValue("{s:n,s:n,s:n,s:n,s:n,s:n,s:n,s:n,s:n}",
                          "acquired", (Py_ssize_t)G.acquired,
                          "n_mmap", (Py_ssize_t)G.n_mmap,
                          "n_reuse", (Py_ssize_t)G.n_reuse,
@@ -458,10 +389,7 @@ static PyObject *py_reserve(PyObject *self, PyObject *args) {
     (void)chunk;
     char *p = NULL;
     Py_BEGIN_ALLOW_THREADS
-    /* prefer the shared warm-pool file: run 1 populates it, later runs
-     * re-map its pages warm */
-    p = shm_slab_mmap(sz);
-    while (p == NULL && sz >= SLAB_ALIGN && (p = slab_mmap(sz)) == NULL)
+    while (sz >= SLAB_ALIGN && (p = slab_mmap(sz)) == NULL)
         sz /= 2;
     Py_END_ALLOW_THREADS
     if (p == NULL)

@@ -1,7 +1,7 @@
 /* grom_tpu native ingest kernels.
  *
  * The reference links vendored htslib for BGZF/BAM IO (src/GROM.c:26-27 and
- * src/sam.c); this is our independent TPU-host equivalent: a multithreaded
+ * src/sam.c); this is our independent equivalent: a multithreaded
  * BGZF inflater and a two-pass BAM record decoder that fills caller-allocated
  * struct-of-arrays buffers (numpy arrays on the Python side, via ctypes).
  *

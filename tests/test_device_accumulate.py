@@ -99,12 +99,12 @@ def test_device_matches_host(ds):
 
 @pytest.mark.slow
 def test_device_engine_end_to_end(tmp_path):
-    """Full CLI run with GROM_TPU_ENGINE=tpu == host engine output."""
+    """Full CLI run with GROM_TPU_ENGINE=device == host engine output."""
     d = os.path.join(DATA, "ds200k")
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     outs = {}
-    for engine in ("host", "tpu"):
+    for engine in ("host", "device"):
         out = tmp_path / ("%s.vcf" % engine)
         env["GROM_TPU_ENGINE"] = engine
         r = subprocess.run(
@@ -114,4 +114,4 @@ def test_device_engine_end_to_end(tmp_path):
             env=env, capture_output=True, text=True, timeout=900)
         assert r.returncode == 0, r.stderr[-2000:]
         outs[engine] = out.read_text()
-    assert outs["host"] == outs["tpu"]
+    assert outs["host"] == outs["device"]

@@ -94,11 +94,11 @@ def test_mesh_engine_vcf_parity(tmp_path):
         run(base.replace(out_vcf=str(tmp_path / "mesh.vcf")),
             file_date="2026725", engine="mesh", mesh=mesh)
         # sequential device engine end-to-end too (same strict gate)
-        run(base.replace(out_vcf=str(tmp_path / "tpu.vcf")),
-            file_date="2026725", engine="tpu")
+        run(base.replace(out_vcf=str(tmp_path / "device.vcf")),
+            file_date="2026725", engine="device")
     finally:
         del os.environ["GROM_TPU_STRICT"]
-    for eng in ("mesh", "tpu"):
+    for eng in ("mesh", "device"):
         assert ((tmp_path / "host.vcf").read_bytes()
                 == (tmp_path / f"{eng}.vcf").read_bytes()), eng
         assert ((tmp_path / "host.ctx.vcf").read_bytes()

@@ -41,7 +41,7 @@ def _setup(ds):
 
 @pytest.mark.parametrize("ds,engine,chunk", [("ds200k", "host", 37_000),
                                              ("sv400k", "host", 37_000),
-                                             ("ds200k", "tpu", 80_000)])
+                                             ("ds200k", "device", 80_000)])
 def test_streamed_matches_whole(ds, engine, chunk):
     cfg, drv, mq, hez, chrom, reads, fa = _setup(ds)
     sel = np.flatnonzero(reads.refid == 0)

@@ -1,8 +1,9 @@
 """Device SV scorer (ops/sv_device.py) end-to-end parity: with the scorer
-forced on (GROM_TPU_DEVICE_SV=1) under jax x64 on CPU devices, the full CLI
-output must be byte-identical to the committed reference-binary golden files
-— proving the screen's binomial gathers can run under jit on the mesh
-engines' x64 configuration without perturbing a single printed digit."""
+forced on (GROM_TPU_DEVICE_SV=1) on CPU devices, the full CLI output must be
+byte-identical to the committed reference-binary golden files — proving the
+screen's binomial gathers run under jit inside the scorer's own x64 scope
+(x64 is not on for the process) without perturbing a single printed
+digit."""
 
 import os
 import subprocess
@@ -19,7 +20,7 @@ def _run(tmp_path, fixture, extra=()):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     env["GROM_TPU_DEVICE_SV"] = "1"
-    env["JAX_ENABLE_X64"] = "1"
+    env.pop("JAX_ENABLE_X64", None)
     env["JAX_PLATFORMS"] = "cpu"
     out = str(tmp_path / "out.vcf")
     r = subprocess.run([sys.executable, "-m", "grom_tpu",
@@ -47,34 +48,32 @@ def test_device_scorer_x64_byte_parity(tmp_path, fixture, extra):
 
 
 def test_scorer_unit_matches_numpy_x64():
-    """Direct DeviceSvScorer vs numpy score_sv_entries (pad-bucket path)."""
+    """Direct DeviceSvScorer vs numpy score_sv_entries (pad-bucket path),
+    with x64 off for the process: the scorer scopes it itself."""
     import jax
-    prev = jax.config.read("jax_enable_x64")
-    jax.config.update("jax_enable_x64", True)
-    try:
-        from grom_tpu.call.sv_screen import score_sv_entries
-        from grom_tpu.ops.sv_device import DeviceSvScorer
-        MT, AF = 50, 10
-        rng = np.random.default_rng(3)
-        mq = np.sort(rng.random((MT + 1, MT + 1)))[:, ::-1].copy()
-        hez = np.sort(rng.random((MT + 1, MT + 1)))[:, ::-1].copy()
-        n = 777   # deliberately not a pow2: exercises the pad slice
-        pos = np.sort(rng.integers(1000, 50000, n)).astype(np.int64)
-        etype = rng.integers(1, 11, n).astype(np.int32)
-        count = rng.integers(0, AF * 2 * MT, n).astype(np.int64)
-        rs = pos - rng.integers(0, 400, n)
-        re = pos - rng.integers(-100, 300, n)
-        rd = rng.integers(0, 3 * MT, n).astype(np.int64)
-        wf = rng.integers(0, AF * MT, n).astype(np.int64)
-        wr = rng.integers(0, AF * MT, n).astype(np.int64)
-        cfh = rng.integers(0, AF * MT, n).astype(np.int64)
-        args = (pos, etype, count, rs, re, rd, wf, wr, cfh)
-        kw = dict(af=AF, mt=MT, md=2, thr1=0.5, mean=300, lseq=100)
-        exp = score_sv_entries(np, *args, mq, hez, **kw)
-        with jax.default_device(jax.devices("cpu")[0]):
-            sc = DeviceSvScorer(mq, hez, AF, MT, 2, 0.5, 300, 100)
-            got = sc(*args)
-        for e, g in zip(exp, got):
-            assert (np.asarray(e) == np.asarray(g)).all()
-    finally:
-        jax.config.update("jax_enable_x64", prev)
+    assert not jax.config.read("jax_enable_x64")
+    from grom_tpu.call.sv_screen import score_sv_entries
+    from grom_tpu.ops.sv_device import DeviceSvScorer
+    MT, AF = 50, 10
+    rng = np.random.default_rng(3)
+    mq = np.sort(rng.random((MT + 1, MT + 1)))[:, ::-1].copy()
+    hez = np.sort(rng.random((MT + 1, MT + 1)))[:, ::-1].copy()
+    n = 777   # deliberately not a pow2: exercises the pad slice
+    pos = np.sort(rng.integers(1000, 50000, n)).astype(np.int64)
+    etype = rng.integers(1, 11, n).astype(np.int32)
+    count = rng.integers(0, AF * 2 * MT, n).astype(np.int64)
+    rs = pos - rng.integers(0, 400, n)
+    re = pos - rng.integers(-100, 300, n)
+    rd = rng.integers(0, 3 * MT, n).astype(np.int64)
+    wf = rng.integers(0, AF * MT, n).astype(np.int64)
+    wr = rng.integers(0, AF * MT, n).astype(np.int64)
+    cfh = rng.integers(0, AF * MT, n).astype(np.int64)
+    args = (pos, etype, count, rs, re, rd, wf, wr, cfh)
+    kw = dict(af=AF, mt=MT, md=2, thr1=0.5, mean=300, lseq=100)
+    exp = score_sv_entries(np, *args, mq, hez, **kw)
+    sc = DeviceSvScorer(mq, hez, AF, MT, 2, 0.5, 300, 100)
+    got = sc(*args)
+    for e, g in zip(exp, got):
+        assert e.dtype == g.dtype
+        assert (np.asarray(e) == np.asarray(g)).all()
+    assert not jax.config.read("jax_enable_x64")

@@ -5,7 +5,7 @@ the peak total RSS and the category breakdown at that peak:
 
   anon     private anonymous mappings (numpy arrays outside the slab pool,
            Python heap, native scratch)
-  shm      /dev/shm-backed mappings (the hugealloc warm slab pool)
+  shm      /dev/shm-backed mappings
   bam      file-backed mappings of the profiled BAM (memmap'd source)
   file     every other file-backed mapping (.so text, page-cache windows)
 
